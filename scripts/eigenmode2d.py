@@ -32,7 +32,7 @@ def main():
     ap.add_argument("--scheme", choices=["lf", "upwind-rk4"], default="lf",
                     help="'upwind-rk4' restores q+1 orders at odd degrees")
     ap.add_argument("--f64", action="store_true",
-                    help="float64 (CPU or emulated-TPU; strict orders)")
+                    help="float64 (strict orders; CPU)")
     ap.add_argument("--cpu", action="store_true", help="force CPU backend")
     ap.add_argument("--json", type=str, default=None,
                     help="write results JSON here")
@@ -49,9 +49,9 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    from seigen_tpu.mesh import build_discrete, rect_mesh
-    from seigen_tpu.ops import Material, build_params
-    from seigen_tpu.solver import (
+    from seigen_jax.mesh import build_discrete, rect_mesh
+    from seigen_jax.ops import Material, build_params
+    from seigen_jax.solver import (
         PlaneWave, State, cfl_dt, convergence_order, interpolate, l2_error,
         run,
     )
@@ -72,8 +72,8 @@ def main():
         n_steps = int(np.ceil(T / dt))
         dt = T / n_steps
         if args.scheme == "upwind-rk4":
-            from seigen_tpu.ops.upwind import build_upwind_data
-            from seigen_tpu.solver.rk4 import run_rk4
+            from seigen_jax.ops.upwind import build_upwind_data
+            from seigen_jax.solver.rk4 import run_rk4
 
             wdata = build_upwind_data(dm, mat, dtype=dtype)
             st = State(

@@ -14,7 +14,7 @@ import sys
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--degrees", type=str, default="1,2,3,4")
     ap.add_argument("--sizes", type=str, default="2,4",
@@ -24,12 +24,15 @@ def main():
                     help="'lf': central flux + leapfrog (reference parity); "
                          "'upwind-rk4': Godunov flux + RK4 (restores clean "
                          "q+1 orders at odd degrees)")
+    ap.add_argument("--impl", choices=["auto", "einsum", "xla_roll", "triton"],
+                    default="auto",
+                    help="operator engine of the LF scheme (ops/select.py)")
     ap.add_argument("--cfl", type=float, default=0.4)
     ap.add_argument("--periods", type=float, default=0.5)
     ap.add_argument("--f64", action="store_true")
     ap.add_argument("--cpu", action="store_true")
     ap.add_argument("--json", type=str, default=None)
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
 
     import jax
 
@@ -40,9 +43,10 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    from seigen_tpu.mesh import box_mesh, build_discrete
-    from seigen_tpu.ops import Material, build_params
-    from seigen_tpu.solver import (
+    from seigen_jax.mesh import box_mesh, build_discrete
+    from seigen_jax.ops import Material, build_params
+    from seigen_jax.ops.select import make_ops, resolve_impl
+    from seigen_jax.solver import (
         PlaneWave, State, cfl_dt, convergence_order, interpolate, l2_error,
         run,
     )
@@ -68,8 +72,8 @@ def main():
             n_steps = int(np.ceil(T / dt))
             dt = T / n_steps
             if args.scheme == "upwind-rk4":
-                from seigen_tpu.ops.upwind import build_upwind_data
-                from seigen_tpu.solver.rk4 import run_rk4
+                from seigen_jax.ops.upwind import build_upwind_data
+                from seigen_jax.solver.rk4 import run_rk4
 
                 wdata = build_upwind_data(dm, mat, dtype=dtype)
                 # co-located ICs at t=0 (no staggering with RK4)
@@ -82,18 +86,23 @@ def main():
                     lambda p, w, st: run_rk4(p, w, st, dt, n_steps)
                 )(p, wdata, st)
             else:
+                impl = resolve_impl(args.impl, jax.devices()[0].platform,
+                                    dm, dtype)
+                vo, so = make_ops(impl, p, dm)
                 st = State(
                     u=jnp.asarray(interpolate(dm, pw.u, 0.0), dtype=dtype),
                     s=jnp.asarray(interpolate(dm, pw.sigma, 0.5 * dt),
                                   dtype=dtype),
                 )
                 fin, _ = jax.jit(
-                    lambda p, st: run(p, st, dt, n_steps, order=args.order)
+                    lambda p, st: run(p, st, dt, n_steps, order=args.order,
+                                      vel_op=vo, stress_op=so)
                 )(p, st)
             err = l2_error(dm, np.asarray(fin.u), pw.u, n_steps * dt)
             rows.append({"N": N, "h": 1.0 / N, "steps": n_steps,
                          "l2_error_u": err})
-            print(f"P{degree} N={N:3d} steps={n_steps:5d} L2(u)={err:.6e}")
+            print(f"P{degree} N={N:3d} steps={n_steps:5d} L2(u)={err:.6e}"
+                  + ("" if args.scheme != "lf" else f" impl={impl}"))
         order = (
             convergence_order([r["h"] for r in rows],
                               [r["l2_error_u"] for r in rows])

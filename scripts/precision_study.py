@@ -1,73 +1,73 @@
 #!/usr/bin/env python
-"""Kernel matmul-precision accuracy study on TPU (results/precision_study.json).
+"""Matmul-precision accuracy study: the gate for running the operators'
+f32 contractions below full precision.
 
-Runs a long 2D P3 eigenmode through the fused lane pipeline under each
-in-kernel precision scheme and records the final L2 error vs the analytic
-solution.  Gate for making 'x3' (manual bf16_3x) the default: its error must
-match 'highest' (full f32) at the spatial-error floor.
+Runs a long 2D P3 plane-wave eigenmode on the XLA operators under each
+``jax.default_matmul_precision`` scheme, in one process, and records the
+final L2 error against the analytic solution.  A faster scheme (TF32,
+bf16x3) may become the default only if its error matches 'highest' at the
+spatial-error floor.
 
-Each scheme runs in a subprocess because SEIGEN_TPU_KERNEL_PRECISION is
-read at import time.
+  python scripts/precision_study.py [N] [degree] [--out study.json]
 """
 
+import argparse
 import json
-import os
-import subprocess
 import sys
 
-CHILD = r"""
-import json, sys
-import numpy as np
-import jax
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-import jax.numpy as jnp
-from seigen_tpu.mesh import rect_mesh, build_discrete
-from seigen_tpu.ops import Material, build_params
-from seigen_tpu.ops.structured_exchange import detect_structured
-from seigen_tpu.solver import PlaneWave, State, cfl_dt, interpolate, l2_error
-from seigen_tpu.solver.lane_fused import FusedLaneRunner
+sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
-N, degree = int(sys.argv[1]), int(sys.argv[2])
-mat = Material(rho=1.0, vp=2.0, vs=1.0)
-dm = build_discrete(rect_mesh(N, N, periodic=(0, 1)), degree)
-p = build_params(dm, mat, dtype=jnp.float32)
-ex = detect_structured(dm)
-pw = PlaneWave(mat=mat, k=2 * np.pi * np.array([1.0, 1.0]), mode="S")
-T = 2.0 * pw.period
-dt = cfl_dt(dm.h.min(), 2.0, degree, 0.4)
-n_steps = int(np.ceil(T / dt))
-dt = T / n_steps
-st = State(
-    u=jnp.asarray(interpolate(dm, pw.u, 0.0), jnp.float32),
-    s=jnp.asarray(interpolate(dm, pw.sigma, 0.5 * dt), jnp.float32),
-)
-r = FusedLaneRunner(p, ex, dt, order=4)
-out, _ = r.run(st, n_steps)
-err = l2_error(dm, np.asarray(out.u), pw.u, n_steps * dt)
-print(json.dumps({"err": float(err), "steps": n_steps}))
-"""
+SCHEMES = ("highest", "BF16_BF16_F32_X3", "tensorfloat32", "bfloat16")
 
 
-def main():
-    N = int(sys.argv[1]) if len(sys.argv) > 1 else 16
-    degree = int(sys.argv[2]) if len(sys.argv) > 2 else 3
-    out = {"N": N, "degree": degree, "schemes": {}}
-    for scheme in ("highest", "x3", "default"):
-        env = dict(os.environ)
-        env["SEIGEN_TPU_KERNEL_PRECISION"] = scheme
-        res = subprocess.run(
-            [sys.executable, "-c", CHILD, str(N), str(degree)],
-            capture_output=True, text=True, env=env, timeout=1200,
-        )
-        line = res.stdout.strip().splitlines()[-1] if res.stdout else ""
-        try:
-            out["schemes"][scheme] = json.loads(line)
-        except Exception:
-            out["schemes"][scheme] = {"error": res.stderr[-500:]}
-        print(scheme, out["schemes"][scheme])
-    os.makedirs("results", exist_ok=True)
-    with open("results/precision_study.json", "w") as f:
-        json.dump(out, f, indent=2)
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("N", type=int, nargs="?", default=16)
+    ap.add_argument("degree", type=int, nargs="?", default=3)
+    ap.add_argument("--out", type=str, default=None)
+    args = ap.parse_args(argv)
+
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from seigen_jax.mesh import build_discrete, rect_mesh
+    from seigen_jax.ops import Material, build_params
+    from seigen_jax.ops.select import XLA_STRUCTURED, make_ops
+    from seigen_jax.solver import (PlaneWave, State, cfl_dt, interpolate,
+                                   l2_error, run)
+    from seigen_jax.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
+    mat = Material(rho=1.0, vp=2.0, vs=1.0)
+    dm = build_discrete(rect_mesh(args.N, args.N, periodic=(0, 1)),
+                        args.degree)
+    p = build_params(dm, mat, dtype=jnp.float32)
+    vel_op, stress_op = make_ops(XLA_STRUCTURED, p, dm)
+    pw = PlaneWave(mat=mat, k=2 * np.pi * np.array([1.0, 1.0]), mode="S")
+    T = 2.0 * pw.period
+    dt = cfl_dt(dm.h.min(), 2.0, args.degree, 0.4)
+    n_steps = int(np.ceil(T / dt))
+    dt = T / n_steps
+    st = State(
+        u=jnp.asarray(interpolate(dm, pw.u, 0.0), jnp.float32),
+        s=jnp.asarray(interpolate(dm, pw.sigma, 0.5 * dt), jnp.float32),
+    )
+    out = {"N": args.N, "degree": args.degree, "steps": n_steps,
+           "device_kind": jax.devices()[0].device_kind, "schemes": {}}
+    for scheme in SCHEMES:
+        # the precision is read while tracing: a fresh jit per scheme
+        with jax.default_matmul_precision(scheme):
+            fin, _ = jax.jit(lambda p, st: run(
+                p, st, dt, n_steps, order=4, vel_op=vel_op,
+                stress_op=stress_op))(p, st)
+        err = l2_error(dm, np.asarray(fin.u), pw.u, n_steps * dt)
+        out["schemes"][scheme] = {"err": float(err)}
+        print(scheme, out["schemes"][scheme], flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(out, f, indent=2)
+    print(json.dumps(out))
     return 0
 
 

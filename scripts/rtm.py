@@ -5,10 +5,9 @@ FWI (docs/fwi.md): record observed data in the TRUE (reflector-bearing)
 model, evaluate the seismogram-misfit gradient in the smooth background,
 and the material gradient is the zero-lag cross-correlation image of the
 forward and back-propagated wavefields — reflectivity up to sign and
-illumination.  So every gradient engine (`--grad-path
-einsum/lane/merged/lane_u`) and its parallel axes work unchanged; what
+illumination.  The gradient is einsum AD (solver/adjoint.py); what
 this script adds is the imaging post-processing
-(`seigen_tpu/solver/imaging.py`): acquisition mute + graph-Laplacian
+(`seigen_jax/solver/imaging.py`): acquisition mute + graph-Laplacian
 low-wavenumber artifact removal.
 
 Demo model: homogeneous background; the true model adds a sharp flat
@@ -23,8 +22,8 @@ physical source ghost (a polarity-flipped phantom ~v*t_ghost/2 below
 the true horizon — measured and explained in the --free-top help).
 
 The reference framework was forward-only (SURVEY.md §2); imaging is
-beyond-parity capability.  Run on CPU: `--cpu --f64 --n 16`; production
-on TPU: `--grad-path merged --dim 3`.
+beyond-parity capability.  Run on CPU: `--cpu --f64 --n 16`; on a GPU,
+e.g. `--dim 3 --areal`.
 """
 
 import argparse
@@ -63,19 +62,13 @@ def main():
                          "cannot image a 3D volume: the round-3 artifact "
                          "put 79%% of windowed image energy off the "
                          "acquisition plane as shallow low-wavenumber "
-                         "smear, pulling z_imaged 0.23 shallow "
-                         "(diagnosis in BENCH_NOTES round 4)")
+                         "smear, pulling z_imaged 0.23 shallow")
     ap.add_argument("--free-top", action="store_true",
                     help="free surface on top (default absorbing: the "
                          "ghost-free idealization — a free top adds "
                          "source/receiver ghosts that back-project as "
                          "polarity-flipped phantom reflectors ~v*t_ghost/2 "
                          "deeper; physical, but muddies the demo metric)")
-    ap.add_argument("--grad-path",
-                    choices=["einsum", "lane", "merged", "lane_u"],
-                    default="lane",
-                    help="gradient engine (see docs/fwi.md); merged is "
-                         "3D-structured-only, lane_u works on any mesh")
     ap.add_argument("--segment", type=int, default=None,
                     help="checkpoint-segment length for the adjoint")
     ap.add_argument("--filter-iters", type=int, default=1,
@@ -100,8 +93,9 @@ def main():
 
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from seigen_jax.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
     if args.f64:
@@ -109,16 +103,16 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    from seigen_tpu.mesh import box_mesh, build_discrete, rect_mesh
-    from seigen_tpu.ops import Material, build_params
-    from seigen_tpu.solver import (
+    from seigen_jax.mesh import box_mesh, build_discrete, rect_mesh
+    from seigen_jax.ops import Material, build_params
+    from seigen_jax.solver import (
         PointSource, State, absorbing_bc_fn, build_receivers, build_sources,
         cfl_dt, grid, line, sponge_mask,
     )
-    from seigen_tpu.solver.imaging import (
+    from seigen_jax.solver.imaging import (
         acquisition_mute, laplacian_filter, normalize, rtm_image,
     )
-    from seigen_tpu.solver.shots import stack_shots
+    from seigen_jax.solver.shots import stack_shots
 
     dtype = jnp.float64 if args.f64 else jnp.float32
     t0_wall = time.perf_counter()
@@ -195,66 +189,46 @@ def main():
     damp = jnp.asarray(sponge_mask(dm, sponge, width=sp_w), dtype)
     st0 = State(u=jnp.zeros((E, n_p, dim), dtype),
                 s=jnp.zeros((E, n_p, 3 * (dim - 1)), dtype))
-    print(f"E={E} steps={n_steps} shots={args.shots} f0={f0:.2f} "
-          f"grad_path={args.grad_path}", flush=True)
+    print(f"E={E} steps={n_steps} shots={args.shots} f0={f0:.2f}",
+          flush=True)
 
     theta_bg = {field: jnp.asarray(bg[field], dtype)}
     theta_true = {field: jnp.asarray(true_f[field], dtype)}
-    if args.grad_path == "einsum":
-        from seigen_tpu.solver.adjoint import (
-            run_segmented, seismogram_misfit, with_material)
+    from seigen_jax.solver.adjoint import (
+        run_segmented, seismogram_misfit, with_material)
 
-        def run(theta, src_k, obs_k):
-            p = with_material(p0, **theta)
-            return seismogram_misfit(
-                p, st0, dt, n_steps, src_k, rcv, obs_k,
-                damp=damp, segment=args.segment)
+    def run(theta, src_k, obs_k):
+        p = with_material(p0, **theta)
+        return seismogram_misfit(
+            p, st0, dt, n_steps, src_k, rcv, obs_k,
+            damp=damp, segment=args.segment)
 
-        fwd_one = jax.jit(lambda theta, src_k: run_segmented(
-            with_material(p0, **theta), st0, dt, n_steps,
-            segment=args.segment, src=src_k, damp=damp,
-            receivers=rcv)[1])
-        vg_one = jax.jit(jax.value_and_grad(run))
-        src_np = jax.tree.map(np.asarray, shots)
-        shot_k = lambda k: jax.tree.map(  # noqa: E731
-            lambda x, k=k: jnp.asarray(x[k]), src_np)
-        observed = [np.asarray(fwd_one(theta_true, shot_k(k)))
-                    for k in range(args.shots)]
+    fwd_one = jax.jit(lambda theta, src_k: run_segmented(
+        with_material(p0, **theta), st0, dt, n_steps,
+        segment=args.segment, src=src_k, damp=damp,
+        receivers=rcv)[1])
+    vg_one = jax.jit(jax.value_and_grad(run))
+    src_np = jax.tree.map(np.asarray, shots)
+    shot_k = lambda k: jax.tree.map(  # noqa: E731
+        lambda x, k=k: jnp.asarray(x[k]), src_np)
+    observed = [np.asarray(fwd_one(theta_true, shot_k(k)))
+                for k in range(args.shots)]
 
-        def vg(theta):
-            tot_v, tot_g = 0.0, None
-            for k in range(args.shots):
-                v, g = vg_one(theta, shot_k(k), jnp.asarray(observed[k]))
-                g = jax.tree.map(np.asarray, g)
-                tot_v += float(v)
-                tot_g = g if tot_g is None else jax.tree.map(
-                    np.add, tot_g, g)
-            return tot_v, tot_g
-    else:
-        from seigen_tpu.ops.structured_exchange import detect_structured
-        from seigen_tpu.solver.lane_diff import LaneDiffFwi
-
-        ex = detect_structured(dm)
-        if ex is None and args.grad_path != "lane_u":
-            raise SystemExit("--grad-path lane/merged needs a structured "
-                             "mesh (lane_u works on any)")
-        itp = jax.devices()[0].platform == "cpu"
-        ldf = LaneDiffFwi(
-            p0, dm, ex, dt, n_steps, shots, rcv, None, damp=damp,
-            segment=args.segment, engine=args.grad_path, interpret=itp,
-            **({"block": 8} if itp else {}))
-        ldf.observed = ldf.synth(theta_true)
-        vg = ldf.vg_factory(None)
+    def vg(theta):
+        tot_v, tot_g = 0.0, None
+        for k in range(args.shots):
+            v, g = vg_one(theta, shot_k(k), jnp.asarray(observed[k]))
+            g = jax.tree.map(np.asarray, g)
+            tot_v += float(v)
+            tot_g = g if tot_g is None else jax.tree.map(
+                np.add, tot_g, g)
+        return tot_v, tot_g
 
     misfit, raw = rtm_image(vg, theta_bg, field=field)
 
     if args.illum_comp == "source":
-        from seigen_tpu.solver.imaging import source_illumination
-        if args.grad_path == "einsum":
-            illum = source_illumination(
-                p0, st0, dt, n_steps, shots, damp=damp)
-        else:
-            illum = ldf.illumination()  # same quantity on the lane scan
+        from seigen_jax.solver.imaging import source_illumination
+        illum = source_illumination(p0, st0, dt, n_steps, shots, damp=damp)
         raw = raw / (illum + 0.01 * illum.max())
 
     # post-processing: mute acquisition imprint, remove the smooth
@@ -284,7 +258,7 @@ def main():
     focus = float(w[np.abs(z - zr) <= band].sum() / w.sum())
     summary = {
         "mode": "rtm", "dim": dim, "E": E, "n_steps": n_steps,
-        "shots": args.shots, "grad_path": args.grad_path,
+        "shots": args.shots,
         "f0": f0, "vmax": vmax, "h": h, "areal": bool(args.areal),
         "illum_comp": args.illum_comp,
         "misfit": misfit, "z_reflector": zr, "z_imaged": z_hat,

@@ -91,16 +91,16 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    from seigen_tpu.mesh import build_discrete, rect_mesh
-    from seigen_tpu.ops import Material, build_params
-    from seigen_tpu.ops.curvilinear import (
+    from seigen_jax.mesh import build_discrete, rect_mesh
+    from seigen_jax.ops import Material, build_params
+    from seigen_jax.ops.curvilinear import (
         build_curvi, curved_coords, make_curvi_ops)
-    from seigen_tpu.solver import (
+    from seigen_jax.solver import (
         PointSource, State, absorbing_bc_fn, cfl_dt, run)
-    from seigen_tpu.solver.damping import sponge_mask
-    from seigen_tpu.solver.receivers import build_receivers, line
-    from seigen_tpu.solver.source import build_sources
-    from seigen_tpu.utils.profiling import RegionTimer
+    from seigen_jax.solver.damping import sponge_mask
+    from seigen_jax.solver.receivers import build_receivers, line
+    from seigen_jax.solver.source import build_sources
+    from seigen_jax.utils.profiling import RegionTimer
 
     dtype = jnp.float64 if args.f64 else jnp.float32
     lx, lz = args.lx, args.lz
@@ -163,7 +163,7 @@ def main():
 
     pvd = None
     if args.vtk:
-        from seigen_tpu.utils.io_vtk import PVDWriter
+        from seigen_jax.utils.io_vtk import PVDWriter
 
         pvd = PVDWriter(args.vtk, dm, verts=cverts.reshape(-1, 3, 2))
 

@@ -4,9 +4,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from seigen_tpu.mesh import build_discrete, rect_mesh
-from seigen_tpu.ops import Material, build_params
-from seigen_tpu.solver import (
+from seigen_jax.mesh import build_discrete, rect_mesh
+from seigen_jax.ops import Material, build_params
+from seigen_jax.solver import (
     PointSource,
     State,
     build_receivers,
@@ -16,7 +16,7 @@ from seigen_tpu.solver import (
     run,
     sponge_mask,
 )
-from seigen_tpu.solver.adjoint import (
+from seigen_jax.solver.adjoint import (
     make_fwi_gradient,
     run_segmented,
     seismogram_misfit,
@@ -139,8 +139,8 @@ def test_visco_fwi_gradient_matches_finite_differences():
     upwind-RK4 scan FD-checked (directional, both fields), segmented
     checkpointing invariant, and one projected descent step reduces the
     misfit toward the true Q."""
-    from seigen_tpu.ops.upwind import build_upwind_data
-    from seigen_tpu.solver.adjoint import make_visco_fwi_gradient
+    from seigen_jax.ops.upwind import build_upwind_data
+    from seigen_jax.solver.adjoint import make_visco_fwi_gradient
 
     dm = build_discrete(rect_mesh(5, 5), 1)
     p = build_params(dm, MAT, dtype=jnp.float64)
@@ -160,8 +160,8 @@ def test_visco_fwi_gradient_matches_finite_differences():
     f_band = (0.3, 5.0)
 
     # observed data from a heterogeneous TRUE attenuation model
-    from seigen_tpu.ops.viscoelastic import build_visco
-    from seigen_tpu.solver.rk4 import run_rk4_visco
+    from seigen_jax.ops.viscoelastic import build_visco
+    from seigen_jax.solver.rk4 import run_rk4_visco
 
     rng = np.random.default_rng(5)
     q_true = 8.0 + 20.0 * rng.random(E)

@@ -6,16 +6,16 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from seigen_tpu.mesh import box_mesh, build_discrete, rect_mesh
-from seigen_tpu.ops import Material, apply_stress_op, build_params
-from seigen_tpu.ops.anisotropic import (
+from seigen_jax.mesh import box_mesh, build_discrete, rect_mesh
+from seigen_jax.ops import Material, apply_stress_op, build_params
+from seigen_jax.ops.anisotropic import (
     christoffel_speeds,
     iso_stiffness,
     make_aniso_stress_op,
     max_wavespeed,
     vti_stiffness,
 )
-from seigen_tpu.solver import State, cfl_dt, run
+from seigen_jax.solver import State, cfl_dt, run
 
 MAT = Material(rho=1.3, vp=2.0, vs=1.1)
 
@@ -115,9 +115,9 @@ def test_facade_stiffness_option():
     isotropic C reproduces the isotropic facade solution (same dt forced
     via equal CFL inputs is not guaranteed, so compare fields after the
     same physical time with a loose tolerance)."""
-    from seigen_tpu.ops.anisotropic import iso_stiffness
-    from seigen_tpu.solver import PointSource, line
-    from seigen_tpu.solver.simulation import ElasticSimulation, SimConfig
+    from seigen_jax.ops.anisotropic import iso_stiffness
+    from seigen_jax.solver import PointSource, line
+    from seigen_jax.solver.simulation import ElasticSimulation, SimConfig
 
     mat = MAT
     lam, mu = float(np.asarray(mat.lam)), float(np.asarray(mat.mu))
@@ -150,7 +150,7 @@ def test_facade_stiffness_option():
 def test_bond_rotation():
     """Bond transformation sanity: rotations leave isotropic C invariant;
     rotating VTI z->x (HTI) swaps the qP axis speeds; symmetry preserved."""
-    from seigen_tpu.ops.anisotropic import hti_stiffness, rotate_stiffness
+    from seigen_jax.ops.anisotropic import hti_stiffness, rotate_stiffness
 
     lam, mu, rho = 2.0, 1.0, 1.3
     Ci = iso_stiffness(lam, mu, 3)
@@ -169,115 +169,3 @@ def test_bond_rotation():
     np.testing.assert_allclose(
         christoffel_speeds(Ch, 1.0, [0, 0, 1])[2],
         vp * np.sqrt(1 + 2 * eps), rtol=1e-12)
-
-
-def test_aniso_fused_merged_paths():
-    """VTI stiffness through the v2 fused and v3 merged lane pipelines ==
-    the einsum aniso path (closes VERDICT round-2 missing #2: anisotropy no
-    longer switches off the TPU-native engine)."""
-    from seigen_tpu.ops.structured_exchange import detect_structured
-    from seigen_tpu.solver.lane_fused import FusedLaneRunner
-    from seigen_tpu.solver.lane_merged import MergedLaneRunner
-
-    dm = build_discrete(box_mesh(3, 3, 3), 2)
-    p = build_params(dm, MAT, dtype=jnp.float32)
-    ex = detect_structured(dm)
-    assert ex is not None
-    E, n_p = dm.num_elements, dm.re.n_p
-    C = np.broadcast_to(
-        vti_stiffness(2.0, 1.1, 1.3, epsilon=0.15, delta=0.05, gamma=0.1),
-        (E, 6, 6)).copy()
-    vmax = max_wavespeed(C[0], 1.3)
-    dt = cfl_dt(float(dm.h.min()), vmax, 2, 0.4)
-    rng = np.random.default_rng(3)
-    st = State(
-        u=jnp.asarray(rng.standard_normal((E, n_p, 3)), jnp.float32),
-        s=jnp.asarray(rng.standard_normal((E, n_p, 6)), jnp.float32),
-    )
-    ref, _ = run(p, st, dt, 3, order=4,
-                 stress_op=make_aniso_stress_op(jnp.asarray(C, jnp.float32)))
-    for runner in (
-        FusedLaneRunner(p, ex, dt, order=4, block=8, interpret=True,
-                        stiffness=C),
-        MergedLaneRunner(p, ex, dt, order=4, block=8, interpret=True,
-                         stiffness=C),
-    ):
-        out, _ = runner.run(st, 3)
-        np.testing.assert_allclose(
-            np.asarray(out.u), np.asarray(ref.u), rtol=2e-4, atol=2e-5)
-        np.testing.assert_allclose(
-            np.asarray(out.s), np.asarray(ref.s), rtol=2e-4, atol=2e-5)
-
-
-def test_aniso_sharded_fused():
-    """VTI through the v3 sharded pipeline: partition invariance."""
-    from seigen_tpu.ops.structured_exchange import detect_structured
-    from seigen_tpu.parallel.fused_sharded import ShardedFusedRunner
-    from seigen_tpu.solver.lane_merged import MergedLaneRunner
-
-    dm = build_discrete(box_mesh(4, 3, 3), 2)
-    p = build_params(dm, MAT, dtype=jnp.float32)
-    ex = detect_structured(dm)
-    E, n_p = dm.num_elements, dm.re.n_p
-    C = np.broadcast_to(
-        vti_stiffness(2.0, 1.1, 1.3, epsilon=0.15, delta=0.05, gamma=0.1),
-        (E, 6, 6)).copy()
-    dt = cfl_dt(float(dm.h.min()), max_wavespeed(C[0], 1.3), 2, 0.4)
-    rng = np.random.default_rng(3)
-    st = State(
-        u=jnp.asarray(rng.standard_normal((E, n_p, 3)), jnp.float32),
-        s=jnp.asarray(rng.standard_normal((E, n_p, 6)), jnp.float32),
-    )
-    ref, _ = MergedLaneRunner(p, ex, dt, order=4, block=8, interpret=True,
-                              stiffness=C).run(st, 2)
-    out, _ = ShardedFusedRunner(p, ex, dt, 2, order=4, block=8,
-                                interpret=True, stiffness=C).run(st, 2)
-    np.testing.assert_allclose(
-        np.asarray(out.u), np.asarray(ref.u), rtol=2e-4, atol=2e-5)
-    np.testing.assert_allclose(
-        np.asarray(out.s), np.asarray(ref.s), rtol=2e-4, atol=2e-5)
-
-
-def test_aniso_lane_paths():
-    """VTI stiffness through the v1 lane runner AND the unstructured
-    face-bijection runner (scrambled mesh) == the einsum aniso path —
-    anisotropy no longer requires a structured mesh to ride a
-    TPU-native engine."""
-    import dataclasses as _dc
-
-    from seigen_tpu.ops.structured_exchange import detect_structured
-    from seigen_tpu.solver.lane_major import LaneMajorRunner
-    from seigen_tpu.solver.lane_unstructured import UnstructuredLaneRunner
-
-    rng = np.random.default_rng(7)
-    topo = box_mesh(3, 3, 3)
-    dm = build_discrete(topo, 2)
-    topo_s = _dc.replace(topo, cells=topo.cells[rng.permutation(
-        topo.num_cells)], structure=None)
-    dm_u = build_discrete(topo_s, 2)
-    assert detect_structured(dm_u) is None
-    C6 = vti_stiffness(2.0, 1.1, 1.3, epsilon=0.15, delta=0.05, gamma=0.1)
-    vmax = max_wavespeed(C6, 1.3)
-    dt = cfl_dt(float(dm.h.min()), vmax, 2, 0.4)
-    for dmx, make in (
-        (dm, lambda p, C: LaneMajorRunner(
-            p, detect_structured(dm), dt, order=4, block=8,
-            interpret=True, stiffness=C)),
-        (dm_u, lambda p, C: UnstructuredLaneRunner(
-            p, dt, order=4, block=8, interpret=True, stiffness=C,
-            centroids=np.asarray(dmx.coords.mean(axis=1)))),
-    ):
-        p = build_params(dmx, MAT, dtype=jnp.float64)
-        E, n_p = dmx.num_elements, dmx.re.n_p
-        C = np.broadcast_to(C6, (E, 6, 6)).copy()
-        st = State(
-            u=jnp.asarray(rng.standard_normal((E, n_p, 3)), jnp.float64),
-            s=jnp.asarray(rng.standard_normal((E, n_p, 6)), jnp.float64),
-        )
-        ref, _ = run(p, st, dt, 3, order=4,
-                     stress_op=make_aniso_stress_op(jnp.asarray(C)))
-        out, _ = make(p, C).run(st, 3)
-        np.testing.assert_allclose(
-            np.asarray(out.u), np.asarray(ref.u), rtol=1e-9, atol=1e-11)
-        np.testing.assert_allclose(
-            np.asarray(out.s), np.asarray(ref.s), rtol=1e-9, atol=1e-11)

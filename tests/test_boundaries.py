@@ -11,9 +11,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from seigen_tpu.mesh import BC_RIGID, build_discrete, rect_mesh
-from seigen_tpu.ops import Material, build_params
-from seigen_tpu.solver import State, cfl_dt, l2_error, run
+from seigen_jax.mesh import BC_RIGID, build_discrete, rect_mesh
+from seigen_jax.ops import Material, build_params
+from seigen_jax.solver import State, cfl_dt, l2_error, run
 
 MAT = Material(rho=1.0, vp=2.0, vs=1.0)
 MU = float(np.asarray(MAT.mu))
@@ -46,7 +46,7 @@ def test_rigid_wall_eigenmode(N):
     T = 2 * np.pi / W  # one period
     n_steps = int(np.ceil(T / dt))
     dt = T / n_steps
-    from seigen_tpu.solver import interpolate
+    from seigen_jax.solver import interpolate
 
     st = State(
         u=jnp.asarray(interpolate(dm, _u, 0.0)),

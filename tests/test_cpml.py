@@ -15,17 +15,17 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from seigen_tpu.mesh import box_mesh, build_discrete, rect_mesh
-from seigen_tpu.ops import Material, build_params
-from seigen_tpu.ops.cpml import (
+from seigen_jax.mesh import box_mesh, build_discrete, rect_mesh
+from seigen_jax.ops import Material, build_params
+from seigen_jax.ops.cpml import (
     apply_grad_op_split,
     apply_vel_op_split,
     hooke_pointwise,
 )
-from seigen_tpu.ops.elastic import apply_stress_op, apply_vel_op
-from seigen_tpu.solver import cfl_dt
-from seigen_tpu.solver.damping import absorbing_bc_fn
-from seigen_tpu.solver.pml import (
+from seigen_jax.ops.elastic import apply_stress_op, apply_vel_op
+from seigen_jax.solver import cfl_dt
+from seigen_jax.solver.damping import absorbing_bc_fn
+from seigen_jax.solver.pml import (
     cpml_init,
     cpml_profiles,
     make_cpml_rhs,
@@ -111,64 +111,3 @@ def test_cpml_beats_characteristic_bc():
         assert np.isfinite(uf).all()
         residual[label] = float((uf[interior] ** 2).sum())
     assert residual["pml"] < 0.01 * residual["chr"], residual
-
-
-@pytest.mark.parametrize("dim", [2, 3])
-def test_lane_cpml_matches_einsum_scan(dim):
-    """CpmlLaneRunner (direction-masked merged kernels + operator-unit
-    memory fields) integrates the SAME dynamics as the einsum C-PML RK4
-    (solver/pml.run_cpml) — final wavefield equal to roundoff, f64,
-    heterogeneous material, PML on all non-free sides + free surface."""
-    from seigen_tpu.ops.structured_exchange import detect_structured
-    from seigen_tpu.solver import PointSource, build_sources
-    from seigen_tpu.solver.lane_cpml import CpmlLaneRunner
-    from seigen_tpu.solver.timestep import State
-
-    rng = np.random.default_rng(7)
-    if dim == 2:
-        mesh, n = rect_mesh(6, 6), 6
-        sides = [(0, "lo"), (0, "hi"), (1, "lo")]
-        pos = (0.55, 0.6)
-    else:
-        mesh, n = box_mesh(3, 3, 3), 3
-        sides = [(0, "lo"), (0, "hi"), (1, "lo"), (1, "hi"), (2, "lo")]
-        pos = (0.5, 0.5, 0.6)
-    ext = [(0.0, 1.0)] * dim
-    dm = build_discrete(
-        mesh, 2, bc_fn=absorbing_bc_fn(ext, [(dim - 1, "hi")]))
-    E, n_p = dm.num_elements, dm.re.n_p
-    n_sig = 3 if dim == 2 else 6
-    p = build_params(
-        dm, Material(rho=1.0 + rng.random(E), vp=2.0 + rng.random(E),
-                     vs=0.8 + 0.3 * rng.random(E)), dtype=jnp.float64)
-    ex = detect_structured(dm)
-    assert ex is not None
-    h = float(dm.h.min())
-    dt = cfl_dt(h, 3.0, 2, 0.2)
-    vp_max, f0 = 3.0, 4.0
-    width = 0.3
-    src = build_sources(
-        dm, [PointSource(position=pos, f0=f0, t0=0.15, amplitude=50.0,
-                         radius=2 * h)], dtype=jnp.float64)
-    n_steps = 6
-
-    # einsum oracle
-    dprof, aprof = cpml_profiles(dm, sides, width, vp_max, f0=f0)
-    rhs = make_cpml_rhs(p, dprof, aprof, src=src)
-    u0 = jnp.asarray(0.01 * rng.standard_normal((E, n_p, dim)))
-    s0 = jnp.asarray(0.01 * rng.standard_normal((E, n_p, n_sig)))
-    cst, _ = run_cpml(p, cpml_init(p, u0, s0), dt, n_steps, rhs)
-
-    # lane engine
-    lr = CpmlLaneRunner(p, dm, ex, dt, sides, width, vp_max, f0=f0,
-                        src=src, block=8, interpret=True)
-    st, _ = lr.run(State(u=u0, s=s0), n_steps)
-
-    ur, sr = np.asarray(cst.u), np.asarray(cst.s)
-    scale_u = np.abs(ur).max()
-    scale_s = np.abs(sr).max()
-    assert scale_u > 0 and scale_s > 0
-    np.testing.assert_allclose(np.asarray(st.u), ur, rtol=1e-9,
-                               atol=1e-11 * scale_u)
-    np.testing.assert_allclose(np.asarray(st.s), sr, rtol=1e-9,
-                               atol=1e-11 * scale_s)

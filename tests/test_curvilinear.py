@@ -18,15 +18,15 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from seigen_tpu.mesh import box_mesh, build_discrete, rect_mesh
-from seigen_tpu.ops import Material, build_params
-from seigen_tpu.ops.curvilinear import (
+from seigen_jax.mesh import box_mesh, build_discrete, rect_mesh
+from seigen_jax.ops import Material, build_params
+from seigen_jax.ops.curvilinear import (
     build_curvi,
     curved_coords,
     make_curvi_ops,
 )
-from seigen_tpu.ops.elastic import apply_stress_op, apply_vel_op
-from seigen_tpu.solver import State, absorbing_bc_fn, cfl_dt, run
+from seigen_jax.ops.elastic import apply_stress_op, apply_vel_op
+from seigen_jax.solver import State, absorbing_bc_fn, cfl_dt, run
 
 MAT = Material(rho=1.3, vp=2.0, vs=1.1)
 
@@ -99,7 +99,7 @@ def _u_star(x, y, lam, mu):
 
 
 def _interior_mask(dm):
-    from seigen_tpu.mesh.discrete import BC_INTERIOR
+    from seigen_jax.mesh.discrete import BC_INTERIOR
 
     return (dm.bc == BC_INTERIOR).all(axis=1)
 

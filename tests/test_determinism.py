@@ -9,9 +9,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from seigen_tpu.mesh import build_discrete, rect_mesh
-from seigen_tpu.ops import Material, build_params
-from seigen_tpu.solver import (
+from seigen_jax.mesh import build_discrete, rect_mesh
+from seigen_jax.ops import Material, build_params
+from seigen_jax.solver import (
     PlaneWave,
     PointSource,
     State,

@@ -15,9 +15,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from seigen_tpu.mesh import box_mesh, build_discrete, rect_mesh
-from seigen_tpu.ops import Material, build_params
-from seigen_tpu.solver import (
+from seigen_jax.mesh import box_mesh, build_discrete, rect_mesh
+from seigen_jax.ops import Material, build_params
+from seigen_jax.solver import (
     PlaneWave,
     State,
     cfl_dt,
@@ -86,7 +86,7 @@ def test_temporal_convergence(order, expected):
 
     Measured against a same-mesh fine-dt reference so spatial error cancels.
     """
-    from seigen_tpu.solver.timestep import staggered_init
+    from seigen_jax.solver.timestep import staggered_init
 
     pw = PlaneWave(mat=MAT, k=2 * np.pi * np.array([1.0, 0.0]), mode="S")
     dm = build_discrete(rect_mesh(8, 8, periodic=(0, 1)), 2)

@@ -12,9 +12,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from seigen_tpu.mesh import build_discrete, rect_mesh
-from seigen_tpu.ops import Material, build_params
-from seigen_tpu.solver import (
+from seigen_jax.mesh import build_discrete, rect_mesh
+from seigen_jax.ops import Material, build_params
+from seigen_jax.solver import (
     PointSource,
     State,
     absorbing_bc_fn,
@@ -25,7 +25,7 @@ from seigen_tpu.solver import (
     run,
     sponge_mask,
 )
-from seigen_tpu.solver.models import Layer, add_ellipsoid_body, layered_model
+from seigen_jax.solver.models import Layer, add_ellipsoid_body, layered_model
 
 
 def _setup_2d(N=32, degree=2, mat=None, L=2.0, D=1.0):
@@ -119,7 +119,7 @@ def test_explosive_source_2d_causality_and_decay():
         static_argnames=(),
     )
     # run() uses step index from 0 internally; do chunked manual stepping
-    from seigen_tpu.solver.timestep import make_step
+    from seigen_jax.solver.timestep import make_step
 
     step = make_step(p, dt, order=4, src=src, damp=damp)
     stt = st2

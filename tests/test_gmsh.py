@@ -2,9 +2,9 @@
 
 import numpy as np
 
-from seigen_tpu.mesh import build_discrete, rect_mesh
-from seigen_tpu.mesh.discrete import BC_ABSORB, BC_FREE
-from seigen_tpu.mesh.gmsh_io import read_msh
+from seigen_jax.mesh import build_discrete, rect_mesh
+from seigen_jax.mesh.discrete import BC_ABSORB, BC_FREE
+from seigen_jax.mesh.gmsh_io import read_msh
 
 
 def _boundary_edges(topo):
@@ -83,7 +83,7 @@ def test_msh_physical_groups_to_bc(tmp_path):
     # every boundary face got the right code: free exactly on y=ymax
     be, bf = np.nonzero(dm.bc)
     assert len(be)  # absorbing faces are coded (BC_FREE == 0 on top)
-    import seigen_tpu.mesh.discrete as md
+    import seigen_jax.mesh.discrete as md
 
     for e, f in zip(*np.nonzero(dm.bc == BC_ABSORB)):
         fv = topo2.vertices[topo2.cells[e, md.ref_elem(2, 2).face_vertices[f]]]
@@ -101,7 +101,7 @@ def test_msh_physical_groups_to_bc(tmp_path):
 def test_msh_physical_groups_match_extents_bc(tmp_path):
     """Group-driven BCs reproduce the extents-plane absorbing_bc_fn codes
     on the same mesh (the two BC assignment routes agree)."""
-    from seigen_tpu.solver import absorbing_bc_fn
+    from seigen_jax.solver import absorbing_bc_fn
 
     topo = rect_mesh(5, 4)
     edges = _boundary_edges(topo)

@@ -23,9 +23,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from seigen_tpu.mesh import box_mesh, build_discrete
-from seigen_tpu.ops import Material, build_params
-from seigen_tpu.solver import (
+from seigen_jax.mesh import box_mesh, build_discrete
+from seigen_jax.ops import Material, build_params
+from seigen_jax.solver import (
     ExplosionGreens3D,
     PointSource,
     State,

@@ -3,14 +3,11 @@
 The reference stack ran P1-P4 (SURVEY.md §4.2: production degree sweep
 q in {1..4}); this rebuild's table generator is degree-parametric, so P5+
 come almost for free once the nodal basis is built in a well-conditioned
-way (quadrature-orthonormalized working basis, refelem/tables.py).  High
-degree is also the TPU-native answer to the small-K MXU ceiling recorded
-in BENCH_NOTES (contraction depth K = n_p: 3D P3 K=20 vs P5 K=56 —
-exactly 7x8 lanes).
+way (quadrature-orthonormalized working basis, refelem/tables.py).
 
 Covers: einsum-path spectral-ish convergence at P5 (2D sweep + 3D case)
-and einsum-twin equivalence of all three structured fast engines (v1
-lane, v2 fused, v3 merged) at P5, in interpret mode.  The refelem
+and einsum-twin equivalence of the roll-exchange engine at P5 (the
+fused kernel covers P1-P4 only; ops/select.py sends P5+ to XLA).  The refelem
 identity tests (mass-vs-sympy, discrete IBP, face traces) run at P5/P6
 via the widened parametrization in test_refelem.py.
 """
@@ -20,10 +17,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from seigen_tpu.mesh import box_mesh, build_discrete, rect_mesh
-from seigen_tpu.ops import Material, build_params
-from seigen_tpu.ops.structured_exchange import detect_structured
-from seigen_tpu.solver import (
+from seigen_jax.mesh import box_mesh, build_discrete, rect_mesh
+from seigen_jax.ops import Material, build_params
+from seigen_jax.ops.structured_exchange import detect_structured
+from seigen_jax.solver import (
     PlaneWave,
     State,
     cfl_dt,
@@ -78,9 +75,9 @@ def test_eigenmode3d_p5_accuracy():
 
 
 def test_fast_engines_p5_equivalence():
-    """v1 lane + v2 fused at P5 == einsum oracle (periodic 2D)."""
-    from seigen_tpu.solver.lane_fused import FusedLaneRunner
-    from seigen_tpu.solver.lane_major import LaneMajorRunner
+    """The roll-exchange engine at P5 == einsum oracle (periodic 2D), and
+    auto keeps P5 on the XLA operators even on a GPU."""
+    from seigen_jax.ops.select import XLA_STRUCTURED, choose_impl, make_ops
 
     dm = build_discrete(rect_mesh(4, 4, periodic=(0, 1)), 5)
     pw = PlaneWave(mat=MAT, k=2 * np.pi * np.array([1.0, 1.0]), mode="S")
@@ -94,35 +91,11 @@ def test_fast_engines_p5_equivalence():
         s=jnp.asarray(interpolate(dm, pw.sigma, 0.5 * dt), jnp.float32),
     )
     ref, _ = jax.jit(lambda p, st: run(p, st, dt, n, order=4))(p, st)
-    for cls in (LaneMajorRunner, FusedLaneRunner):
-        out, _ = cls(p, ex, dt, order=4, block=8, interpret=True).run(st, n)
-        np.testing.assert_allclose(
-            np.asarray(out.u), np.asarray(ref.u), rtol=2e-4, atol=2e-5)
-        np.testing.assert_allclose(
-            np.asarray(out.s), np.asarray(ref.s), rtol=2e-4, atol=2e-5)
-
-
-def test_merged_engine_p5_equivalence():
-    """v3 merged (exchange-in-kernel) at P5 == einsum oracle (bounded 2D;
-    the merged plan requires boundary-masked wrap planes)."""
-    from seigen_tpu.solver.lane_merged import MergedLaneRunner
-
-    dm = build_discrete(rect_mesh(4, 4), 5)
-    p = build_params(dm, MAT, dtype=jnp.float32)
-    ex = detect_structured(dm)
-    assert ex is not None
-    dt = cfl_dt(dm.h.min(), 2.0, 5, 0.4)
-    n = 3
-    E, n_p = dm.num_elements, dm.re.n_p
-    rng = np.random.default_rng(3)
-    st = State(
-        u=jnp.asarray(rng.standard_normal((E, n_p, 2)), jnp.float32),
-        s=jnp.asarray(rng.standard_normal((E, n_p, 3)), jnp.float32),
-    )
-    ref, _ = run(p, st, dt, n, order=4)
-    out, _ = MergedLaneRunner(
-        p, ex, dt, order=4, block=8, interpret=True).run(st, n)
+    assert choose_impl("gpu", True, dim=2, degree=5) == XLA_STRUCTURED
+    vo, so = make_ops("xla_roll", p, dm)
+    out, _ = jax.jit(lambda p, st: run(p, st, dt, n, order=4, vel_op=vo,
+                                       stress_op=so))(p, st)
     np.testing.assert_allclose(
-        np.asarray(out.u), np.asarray(ref.u), rtol=3e-4, atol=1e-4)
+        np.asarray(out.u), np.asarray(ref.u), rtol=2e-4, atol=2e-5)
     np.testing.assert_allclose(
-        np.asarray(out.s), np.asarray(ref.s), rtol=3e-4, atol=1e-4)
+        np.asarray(out.s), np.asarray(ref.s), rtol=2e-4, atol=2e-5)

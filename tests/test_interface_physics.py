@@ -11,12 +11,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from seigen_tpu.mesh import build_discrete, rect_mesh
-from seigen_tpu.ops import Material, build_params
-from seigen_tpu.ops.upwind import build_upwind_data
-from seigen_tpu.solver import State, cfl_dt
-from seigen_tpu.solver.models import Layer
-from seigen_tpu.solver.rk4 import run_rk4
+from seigen_jax.mesh import build_discrete, rect_mesh
+from seigen_jax.ops import Material, build_params
+from seigen_jax.ops.upwind import build_upwind_data
+from seigen_jax.solver import State, cfl_dt
+from seigen_jax.solver.models import Layer
+from seigen_jax.solver.rk4 import run_rk4
 
 
 def test_p_wave_reflection_transmission():

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from seigen_tpu.mesh import (
+from seigen_jax.mesh import (
     BC_FREE,
     box_mesh,
     build_discrete,

@@ -5,10 +5,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from seigen_tpu.mesh import box_mesh, build_discrete, rect_mesh
-from seigen_tpu.mesh.gmsh_io import read_msh
-from seigen_tpu.ops import Material, build_params
-from seigen_tpu.solver import (
+from seigen_jax.mesh import box_mesh, build_discrete, rect_mesh
+from seigen_jax.mesh.gmsh_io import read_msh
+from seigen_jax.ops import Material, build_params
+from seigen_jax.solver import (
     PlaneWave,
     PointSource,
     State,
@@ -22,7 +22,7 @@ from seigen_tpu.solver import (
     run,
     sponge_mask,
 )
-from seigen_tpu.utils import load_checkpoint, save_checkpoint
+from seigen_jax.utils import load_checkpoint, save_checkpoint
 
 MAT = Material(rho=1.0, vp=2.0, vs=1.0)
 
@@ -107,7 +107,7 @@ def test_checkpoint_extensionless_path(tmp_path):
 def test_sharded_resume_equivalence():
     """Sharded run with a TIME-DEPENDENT source: 12 straight == 6 + resume 6
     with step0=6 (the Ricker wavelet must stay in phase across the resume)."""
-    from seigen_tpu.parallel import run_distributed
+    from seigen_jax.parallel import run_distributed
 
     extents = ((0.0, 1.0), (0.0, 1.0))
     dm = build_discrete(
@@ -237,10 +237,10 @@ def test_kinematic_rupture_directivity():
     """A unilateral finite-fault rupture (kinematic_rupture) shows forward
     directivity: stations ahead of rupture propagation see larger peak
     amplitudes (Doppler pulse compression) than stations behind."""
-    from seigen_tpu.solver import kinematic_rupture
+    from seigen_jax.solver import kinematic_rupture
 
-    from seigen_tpu.solver import absorbing_bc_fn, build_receivers, sponge_mask
-    from seigen_tpu.solver.timestep import run as run_ts
+    from seigen_jax.solver import absorbing_bc_fn, build_receivers, sponge_mask
+    from seigen_jax.solver.timestep import run as run_ts
 
     extents = ((0.0, 2.0), (0.0, 1.0))
     dm = build_discrete(
@@ -286,8 +286,8 @@ def test_kinematic_rupture_directivity():
 def test_acoustic_medium_mu_zero():
     """Acoustic limit (vs=0, marine case): P eigenmode propagates correctly
     through both the central/leapfrog and upwind/RK4 paths."""
-    from seigen_tpu.ops.upwind import build_upwind_data
-    from seigen_tpu.solver.rk4 import run_rk4
+    from seigen_jax.ops.upwind import build_upwind_data
+    from seigen_jax.solver.rk4 import run_rk4
 
     mat = Material(rho=1.0, vp=1.5, vs=0.0)
     pw = PlaneWave(mat=mat, k=2 * np.pi * np.array([1.0, 0.0]), mode="P")

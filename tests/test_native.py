@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from seigen_tpu.mesh import native
+from seigen_jax.mesh import native
 
 
 pytestmark = pytest.mark.skipif(
@@ -29,8 +29,8 @@ def test_pair_face_nodes_matches_numpy():
 
 def test_pair_on_real_mesh_connectivity():
     """build_discrete with native path equals the pure-NumPy result."""
-    from seigen_tpu.mesh import box_mesh, build_discrete
-    import seigen_tpu.mesh.discrete as D
+    from seigen_jax.mesh import box_mesh, build_discrete
+    import seigen_jax.mesh.discrete as D
 
     topo = box_mesh(3, 2, 2, periodic=(0,))
     dm_native = build_discrete(topo, 2)
@@ -48,7 +48,7 @@ def test_pair_on_real_mesh_connectivity():
 
 
 def test_morton_matches_numpy():
-    from seigen_tpu.parallel.partition import morton_order
+    from seigen_jax.parallel.partition import morton_order
 
     rng = np.random.default_rng(1)
     pts = rng.uniform(size=(5000, 3))
@@ -65,7 +65,7 @@ def test_morton_matches_numpy():
 def test_geometric_factors_match_numpy():
     """Native closed-form geometry vs the LAPACK NumPy path: same values
     to rounding (adjugate inverse vs LU differ only in ULPs)."""
-    from seigen_tpu.mesh import box_mesh, build_discrete, rect_mesh
+    from seigen_jax.mesh import box_mesh, build_discrete, rect_mesh
 
     for topo in (box_mesh(3, 2, 2), rect_mesh(4, 3)):
         dm_native = build_discrete(topo, 2)
@@ -104,8 +104,8 @@ def test_halo_needs_match_numpy():
         assert np.array_equal(needs[k], ref[k]), k
 
     # end-to-end: make_plan identical on both paths
-    from seigen_tpu.mesh import box_mesh, build_discrete
-    from seigen_tpu.parallel.partition import make_plan
+    from seigen_jax.mesh import box_mesh, build_discrete
+    from seigen_jax.parallel.partition import make_plan
 
     dm = build_discrete(box_mesh(3, 3, 3), 1)
     plan_native = make_plan(dm, 4)

@@ -1,7 +1,7 @@
 """Unit tests for reference-element tables (SURVEY.md §6 rebuild test plan #1).
 
 These are the rebuild's analog of trusting TSFC-generated kernels in the
-reference: every table used on the TPU hot path is checked here against exact
+reference: every table used on the device hot path is checked here against exact
 (sympy) integration and discrete identities.
 """
 
@@ -11,8 +11,8 @@ import numpy as np
 import pytest
 import sympy as sp
 
-from seigen_tpu.refelem import ref_elem, simplex_quadrature
-from seigen_tpu.refelem.tables import monomial_exponents
+from seigen_jax.refelem import ref_elem, simplex_quadrature
+from seigen_jax.refelem.tables import monomial_exponents
 
 # P1-P4 = reference parity; P5-P6 = beyond-parity high-order elements
 # (quadrature-orthonormalized nodal basis past P4 — see refelem/tables.py).

@@ -3,7 +3,7 @@
 The distributed oracle, as in the reference's MPI testing: running the same
 problem on 1 chip and on N shards must agree to roundoff.  Exercises the
 Morton partition, halo-exchange planning, ppermute rounds, sharded sources/
-receivers/damping — the full config-5 code path without TPU hardware.
+receivers/damping — the full config-5 code path without accelerator hardware.
 """
 
 import jax
@@ -11,10 +11,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from seigen_tpu.mesh import box_mesh, build_discrete, rect_mesh
-from seigen_tpu.ops import Material, build_params
-from seigen_tpu.parallel import make_plan, run_distributed
-from seigen_tpu.solver import (
+from seigen_jax.mesh import box_mesh, build_discrete, rect_mesh
+from seigen_jax.ops import Material, build_params
+from seigen_jax.parallel import make_plan, run_distributed
+from seigen_jax.solver import (
     PlaneWave,
     PointSource,
     State,

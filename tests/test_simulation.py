@@ -2,10 +2,10 @@
 
 import numpy as np
 
-from seigen_tpu.mesh import rect_mesh
-from seigen_tpu.ops import Material
-from seigen_tpu.solver import PointSource, line
-from seigen_tpu.solver.simulation import ElasticSimulation, SimConfig
+from seigen_jax.mesh import rect_mesh
+from seigen_jax.ops import Material
+from seigen_jax.solver import PointSource, line
+from seigen_jax.solver.simulation import ElasticSimulation, SimConfig
 
 
 def test_facade_end_to_end():
@@ -19,7 +19,7 @@ def test_facade_end_to_end():
             free_sides=((1, "hi"),),
             absorbing_sides=((0, "lo"), (0, "hi"), (1, "lo")),
             sponge_width=0.2,
-            impl="auto",  # on CPU with structured mesh -> xla_roll
+            impl="auto",  # on CPU: the XLA gather (ops/select.py)
         ),
         sources=[PointSource(position=(1.0, 0.8), f0=6.0, radius=0.15)],
         receiver_points=line((0.3, 0.9), (1.7, 0.9), 5),
@@ -32,7 +32,7 @@ def test_facade_end_to_end():
 
 
 def test_facade_impl_equivalence():
-    """auto (xla_roll on CPU) matches plain einsum trajectories."""
+    """The roll-exchange engine matches plain einsum trajectories."""
     def build(impl):
         return ElasticSimulation(
             rect_mesh(8, 8),

@@ -4,9 +4,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from seigen_tpu.mesh import box_mesh, build_discrete, rect_mesh
-from seigen_tpu.ops import Material, build_params
-from seigen_tpu.ops.structured_exchange import (
+from seigen_jax.mesh import box_mesh, build_discrete, rect_mesh
+from seigen_jax.ops import Material, build_params
+from seigen_jax.ops.structured_exchange import (
     detect_structured,
     gather_traces_structured,
 )
@@ -44,7 +44,7 @@ def test_structured_matches_gather(name, mk, degree):
 
 
 def test_unstructured_returns_none():
-    from seigen_tpu.mesh.structured import MeshTopology
+    from seigen_jax.mesh.structured import MeshTopology
 
     topo = rect_mesh(4, 4)
     topo2 = MeshTopology(

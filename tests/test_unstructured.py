@@ -1,7 +1,9 @@
-"""Unstructured lane-major fast path: pairing, exchange, runner equivalence.
+"""Unstructured meshes: structure recovery, and the fused operator kernel
+on scrambled (structure-free) meshes.
 
-Oracle: the general einsum path (ops/elastic.py) — the unstructured lane
-pipeline must reproduce it on scrambled (structure-free) meshes.
+Oracle: the general einsum path (ops/elastic.py) — the kernel, which
+gathers neighbour traces through the same ``nbr`` table, must reproduce
+it on scrambled meshes.
 """
 
 import dataclasses
@@ -11,15 +13,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from seigen_tpu.mesh import box_mesh, build_discrete, rect_mesh
-from seigen_tpu.ops import Material, build_params
-from seigen_tpu.ops.pallas_kernels import build_pallas_data, _gather_traces
-from seigen_tpu.ops.unstructured_exchange import (
-    derive_face_pairing,
-    make_unstructured_exchange_lm,
-    orientation_groups,
-)
-from seigen_tpu.solver import (
+from seigen_jax.mesh import box_mesh, build_discrete, rect_mesh
+from seigen_jax.ops import Material, build_params
+from seigen_jax.ops.dg_kernel import make_kernel_ops
+from seigen_jax.solver import (
     PointSource,
     State,
     build_receivers,
@@ -29,8 +26,6 @@ from seigen_tpu.solver import (
     run,
     sponge_mask,
 )
-from seigen_tpu.solver.lane_major import to_lm
-from seigen_tpu.solver.lane_unstructured import UnstructuredLaneRunner
 
 MAT = Material(rho=1.0, vp=2.0, vs=1.0)
 
@@ -43,53 +38,13 @@ def scrambled(topo, seed=0):
     return dataclasses.replace(topo, cells=topo.cells[perm], structure=None)
 
 
-@pytest.mark.parametrize("dim,degree", [(2, 1), (2, 3), (3, 2)])
-def test_face_pairing_roundtrip(dim, degree):
-    topo = (rect_mesh(5, 4) if dim == 2 else box_mesh(3, 3, 3))
-    dm = build_discrete(scrambled(topo), degree)
-    p = build_params(dm, MAT, dtype=jnp.float64)
-    pr = derive_face_pairing(np.asarray(p.nbr), p.n_p, p.fnodes)
-    # the pairing is an involution on faces: consumer of my producer is me
-    E, nf = pr.e2.shape
-    for e in range(0, E, max(1, E // 17)):
-        for f in range(nf):
-            e2, f2 = pr.e2[e, f], pr.f2[e, f]
-            assert pr.e2[e2, f2] == e and pr.f2[e2, f2] == f
-    # orientation group count is bounded by facet symmetries (+identity)
-    gid, perms = orientation_groups(pr)
-    assert perms.shape[0] <= (3 if dim == 2 else 7)
-
-
-@pytest.mark.parametrize("dim,degree,C", [(2, 2, 2), (2, 2, 3), (3, 3, 3),
-                                          (3, 1, 6)])
-def test_unstructured_exchange_matches_einsum_gather(dim, degree, C):
-    topo = (rect_mesh(6, 5) if dim == 2 else box_mesh(2, 3, 2))
-    dm = build_discrete(scrambled(topo, seed=3), degree)
-    p = build_params(dm, MAT, dtype=jnp.float64)
-    d = build_pallas_data(p)
-    E = dm.num_elements
-    E_pad = E + (-E) % 8
-    rng = np.random.default_rng(7)
-    field = jnp.asarray(rng.standard_normal((E, p.n_p, C)))
-
-    ref = _gather_traces(p, field)  # (E, ftp, C) consumer traces
-    ref_lm = to_lm(ref, d.ftpp, E_pad)
-
-    pr = derive_face_pairing(np.asarray(p.nbr), p.n_p, p.fnodes)
-    ex = make_unstructured_exchange_lm(pr, d.npp, d.ftpp, C, E, E_pad,
-                                       p.fnodes)
-    out = ex(to_lm(field, d.npp, E_pad))
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref_lm),
-                               rtol=0, atol=0)
-
-
 def test_structure_recovery():
-    """Scrambled lattice meshes are recognized and reordered so the fast
-    structured pipelines engage; irregular meshes are left untouched."""
+    """Scrambled lattice meshes are recognized and reordered so the roll
+    exchange engages; irregular meshes are left untouched."""
     import dataclasses as dc
 
-    from seigen_tpu.mesh.recover import recover_structure
-    from seigen_tpu.ops.structured_exchange import detect_structured
+    from seigen_jax.mesh.recover import recover_structure
+    from seigen_jax.ops.structured_exchange import detect_structured
 
     rng = np.random.default_rng(1)
     for topo in (rect_mesh(8, 6), box_mesh(4, 4, 4),
@@ -116,7 +71,7 @@ def test_structure_recovery():
 def test_structure_recovery_same_physics():
     """A recovered (reordered) mesh produces the same seismograms as the
     original through the simulation facade."""
-    from seigen_tpu.solver.simulation import ElasticSimulation, SimConfig
+    from seigen_jax.solver.simulation import ElasticSimulation, SimConfig
 
     topo = rect_mesh(6, 6)
     cfg = SimConfig(degree=2, impl="einsum", dtype="float64",
@@ -134,9 +89,11 @@ def test_structure_recovery_same_physics():
     np.testing.assert_allclose(seis_b, seis_a, rtol=1e-9, atol=1e-12)
 
 
-@pytest.mark.parametrize("dim,degree,fused_select",
-                         [(2, 2, True), (3, 1, True), (2, 2, False)])
-def test_unstructured_runner_matches_general(dim, degree, fused_select):
+@pytest.mark.parametrize("dim,degree,block",
+                         [(2, 2, 16), (3, 1, 16), (2, 2, 32)])
+def test_unstructured_runner_matches_general(dim, degree, block):
+    """A sponge + source + receiver LF4 scan on a scrambled mesh: the
+    fused kernel (interpreted) against the einsum gather."""
     topo = (rect_mesh(8, 6) if dim == 2 else box_mesh(3, 2, 2))
     dm = build_discrete(scrambled(topo, seed=11), degree)
     p = build_params(dm, MAT, dtype=jnp.float32)
@@ -155,16 +112,15 @@ def test_unstructured_runner_matches_general(dim, degree, fused_select):
     st = State(u=jnp.zeros((E, n_p, dim), jnp.float32),
                s=jnp.zeros((E, n_p, n_sig), jnp.float32))
 
-    ref, seis_ref = jax.jit(
-        lambda p, st: run(p, st, dt, n_steps, order=4, src=src, damp=damp,
-                          receivers=rcv)
-    )(p, st)
+    def scan(vel_op=None, stress_op=None):
+        ops = {} if vel_op is None else dict(vel_op=vel_op,
+                                             stress_op=stress_op)
+        return jax.jit(lambda p, st: run(
+            p, st, dt, n_steps, order=4, src=src, damp=damp,
+            receivers=rcv, **ops))(p, st)
 
-    runner = UnstructuredLaneRunner(
-        p, dt, order=4, src=src, damp=damp, receivers=rcv,
-        centroids=np.asarray(dm.coords.mean(axis=1)), block=8,
-        interpret=True, fused_select=fused_select)
-    out, seis = runner.run(st, n_steps)
+    ref, seis_ref = scan()
+    out, seis = scan(*make_kernel_ops(block=block, interpret=True))
     np.testing.assert_allclose(np.asarray(out.u), np.asarray(ref.u),
                                rtol=2e-4, atol=1e-6)
     np.testing.assert_allclose(np.asarray(out.s), np.asarray(ref.s),

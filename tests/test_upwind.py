@@ -5,10 +5,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from seigen_tpu.mesh import build_discrete, rect_mesh
-from seigen_tpu.ops import Material, build_params
-from seigen_tpu.ops.upwind import build_upwind_data
-from seigen_tpu.solver import (
+from seigen_jax.mesh import build_discrete, rect_mesh
+from seigen_jax.ops import Material, build_params
+from seigen_jax.ops.upwind import build_upwind_data
+from seigen_jax.solver import (
     PlaneWave,
     PointSource,
     State,
@@ -18,7 +18,7 @@ from seigen_tpu.solver import (
     interpolate,
     l2_error,
 )
-from seigen_tpu.solver.rk4 import run_rk4
+from seigen_jax.solver.rk4 import run_rk4
 
 MAT = Material(rho=1.0, vp=2.0, vs=1.0)
 
@@ -59,7 +59,7 @@ def test_upwind_rk4_eigenmode3d_convergence(degree, min_order):
     accuracy bar; full 3-point sweeps in results/conv3d_up_*.json, run via
     scripts/eigenmode3d.py --scheme upwind-rk4: fitted orders
     1.61 / 3.19 / 4.06 / 4.38, asymptotic pairs 2.03 / 3.30 / 3.74 / 5.01)."""
-    from seigen_tpu.mesh import box_mesh
+    from seigen_jax.mesh import box_mesh
 
     mat = MAT
     pw = PlaneWave(

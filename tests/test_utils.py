@@ -5,9 +5,9 @@ import os
 import jax.numpy as jnp
 import numpy as np
 
-from seigen_tpu.mesh import build_discrete, rect_mesh
-from seigen_tpu.solver import State
-from seigen_tpu.utils import (
+from seigen_jax.mesh import build_discrete, rect_mesh
+from seigen_jax.solver import State
+from seigen_jax.utils import (
     PVDWriter,
     RegionTimer,
     load_checkpoint,

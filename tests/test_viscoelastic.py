@@ -5,16 +5,16 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from seigen_tpu.mesh import build_discrete, rect_mesh
-from seigen_tpu.ops import Material, build_params
-from seigen_tpu.ops.upwind import build_upwind_data
-from seigen_tpu.ops.viscoelastic import (
+from seigen_jax.mesh import build_discrete, rect_mesh
+from seigen_jax.ops import Material, build_params
+from seigen_jax.ops.upwind import build_upwind_data
+from seigen_jax.ops.viscoelastic import (
     build_visco,
     fit_anelastic_unit,
     model_q_inv,
 )
-from seigen_tpu.solver import PlaneWave, State, cfl_dt, interpolate
-from seigen_tpu.solver.rk4 import run_rk4, run_rk4_visco
+from seigen_jax.solver import PlaneWave, State, cfl_dt, interpolate
+from seigen_jax.solver.rk4 import run_rk4, run_rk4_visco
 
 MAT = Material(rho=1.0, vp=2.0, vs=1.0)
 
